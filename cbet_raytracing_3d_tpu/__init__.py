@@ -1,5 +1,5 @@
-"""cbet_raytracing_3d_tpu — a TPU-native (JAX/XLA/Pallas/shard_map) framework
-for 3-D laser ray tracing, inverse-bremsstrahlung absorption, energy
+"""cbet_raytracing_3d_tpu — a JAX (XLA/shard_map) framework for 3-D laser
+ray tracing, inverse-bremsstrahlung absorption, energy
 deposition, and cross-beam energy transfer (CBET) in spherically symmetric
 ICF plasmas.
 

@@ -1,4 +1,4 @@
-"""Precomputed 3-D node fields — the core TPU-first design move.
+"""Precomputed 3-D node fields — the core design move of the step.
 
 The reference's hot loop performs 8 binary-search radial interpolations per
 ray per step (``launch_ray_XZ.cu:254-265,296-298``) — but every one of those

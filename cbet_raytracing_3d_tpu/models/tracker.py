@@ -16,8 +16,8 @@ step (oracle.py:249-256 appends then breaks).  Pupil-rejected rays
 (launch_ray_XZ.cu:114,181-182) record zero steps.
 
 Tracked-ray counts are diagnostic-scale (tens to thousands), so the scan
-runs over a lane-padded (K,) batch — negligible cost next to a full trace —
-and the whole history (nt, K) stays small enough to materialize.
+over the (K,) batch costs little next to a full trace, and the whole
+history (nt, K) stays small enough to materialize.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ import numpy as np
 from ..config import Config
 from .raytracer import (RayState, TraceContext, make_deferred_step_fn,
                         select_rays)
-
-_LANES = 128     # pad the tracked batch to full TPU lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,27 +98,6 @@ class RayTrajectories:
                                           RayTrajectories)})
 
 
-def _pad_state(state: RayState, n: int) -> RayState:
-    """Pad the ray axis to ``n`` with dead slots (host or device arrays)."""
-    k = state.n
-    if k == n:
-        return state
-    xp = np if isinstance(state.uray, np.ndarray) else jnp
-
-    def padf(a, fill=0):
-        return xp.concatenate([a, xp.full((n - k,), fill, a.dtype)])
-
-    return RayState(
-        frac=tuple(padf(a) for a in state.frac),
-        vel=tuple(padf(a) for a in state.vel),
-        kick=tuple(padf(a) for a in state.kick),
-        uray=padf(state.uray),
-        uray_init=padf(state.uray_init, 1),   # keep the 5% rule defined
-        cell=tuple(padf(a) for a in state.cell),
-        alive=padf(state.alive, False),
-    )
-
-
 def make_track_fn(cfg: Config):
     """Jittable ``(field4, state0) -> (final_state, history)`` where
     ``history = (cell (nt,K,3), pos (nt,K,3), uray (nt,K), recorded (nt,K))``
@@ -186,12 +163,10 @@ def track_rays(cfg: Config, beams, ray_ids,
     gtile, rit = slots_of_rays(cfg, beams, ray_ids)
     found = None
     if ctx.compact:
-        # traced position of each global tile in the compact layout; on
-        # duplicate ids (dead-tile block padding) the VALID occurrence wins
-        ids, valid = live_tile_ids(cfg, layout)
+        # traced position of each global tile in the compact layout
+        ids = live_tile_ids(cfg, layout)
         pos_of = np.full(cfg.nbeams * layout.tiles_per_beam, -1, np.int64)
-        order = np.argsort(valid.astype(np.int8), kind="stable")
-        pos_of[ids[order]] = np.arange(len(ids), dtype=np.int64)[order]
+        pos_of[ids] = np.arange(len(ids), dtype=np.int64)
         pos = pos_of[gtile]
         found = pos >= 0
         slots = np.where(found, pos, 0) * rpt + rit
@@ -199,7 +174,6 @@ def track_rays(cfg: Config, beams, ray_ids,
         slots = gtile * rpt + rit
 
     k = beams.shape[0]
-    n_pad = -(-k // _LANES) * _LANES
     sel = select_rays(ctx.state0, slots)
     if found is not None and not found.all():
         xp = np if isinstance(sel.uray, np.ndarray) else jnp
@@ -209,7 +183,7 @@ def track_rays(cfg: Config, beams, ray_ids,
             uray=xp.where(m, sel.uray, xp.zeros_like(sel.uray)),
             uray_init=xp.where(m, sel.uray_init,
                                xp.ones_like(sel.uray_init)))
-    state0 = _pad_state(sel, n_pad)
+    state0 = sel
     if isinstance(state0.uray, np.ndarray):     # host-state context
         state0 = jax.tree.map(jnp.asarray, state0)
     field4 = jnp.asarray(ctx.field4)
@@ -217,13 +191,13 @@ def track_rays(cfg: Config, beams, ray_ids,
     track = jax.jit(make_track_fn(cfg))
     _final, (cell, pos, uray, recorded) = track(field4, state0)
 
-    cell = np.asarray(cell[:, :k, :])
-    pos = np.asarray(pos[:, :k, :])
-    uray = np.asarray(uray[:, :k])
-    recorded = np.asarray(recorded[:, :k])
+    cell = np.asarray(cell)
+    pos = np.asarray(pos)
+    uray = np.asarray(uray)
+    recorded = np.asarray(recorded)
     launched = recorded[0] if cfg.nt > 0 else np.zeros((k,), bool)
     return RayTrajectories(
         beams=beams, ray_ids=ray_ids, launched=np.asarray(launched),
         steps=recorded.sum(axis=0).astype(np.int32),
-        uray_init=np.asarray(state0.uray_init[:k]),
+        uray_init=np.asarray(state0.uray_init),
         cell=cell, pos=pos, uray=uray, recorded=recorded)

@@ -2,13 +2,11 @@
 
 Replaces the reference's multi-GPU story — static beam split across 2 GPUs
 with fully replicated inputs and a host-CPU OpenMP sum of per-GPU deposition
-grids (``main.cu:133-152,166-176,199-210``; ``multi_gpu.cpp``) — with the
-TPU-native equivalent: the flat ray (slot) axis is sharded over a 1-D
+grids (``main.cu:133-152,166-176,199-210``; ``multi_gpu.cpp``) — with an
+on-device equivalent: the flat ray (slot) axis is sharded over a 1-D
 ``jax.sharding.Mesh``, the small inputs (node fields, tables) are replicated,
 each device accumulates a local deposition grid, and the grids are combined
-with ``jax.lax.psum`` over ICI.  Sharding cuts at *launch-tile* boundaries so
-every device's Pallas deposit kernel sees whole tiles; beam boundaries are a
-special case (tiles never span beams), and slot-level sharding stays
+with ``jax.lax.psum`` (NCCL over NVLink on GPUs).  Slot-level sharding stays
 load-balanced for any device count — unlike the reference's hard-coded
 ``nGPUs=2`` beam split (def.cuh:116).
 """
@@ -35,10 +33,8 @@ def make_mesh(devices=None) -> Mesh:
 
 
 def pad_rays(state: RayState, multiple: int) -> RayState:
-    """Pad the slot axis to a multiple of ``multiple`` with dead rays.
-
-    For the Pallas deposit path, ``multiple`` must be
-    ``n_devices * rays_per_tile`` so shards split at tile boundaries.
+    """Pad the slot axis to a multiple of ``multiple`` with dead rays
+    (``n_devices * rays_per_tile`` keeps shards at tile boundaries).
     Host (NumPy) states stay on the host."""
     n = state.n
     pad = (-n) % multiple
@@ -67,15 +63,14 @@ def put_state(state: RayState) -> RayState:
     return jax.tree_util.tree_map(jnp.asarray, state)
 
 
-def make_sharded_trace_fn(cfg: Config, mesh: Mesh, rays_per_tile: int,
-                          backend: str | None = None):
+def make_sharded_trace_fn(cfg: Config, mesh: Mesh):
     """Jitted multi-device trace:
     ``(field4, state0) -> (edep, state, overflow)``.
 
-    ``state0``'s slot axis must be divisible by mesh size * rays_per_tile
-    (see ``pad_rays``).  The deposition grid is psum-reduced over ICI; the
+    ``state0``'s slot axis must be divisible by the mesh size (see
+    ``pad_rays``).  The deposition grid is psum-reduced across devices; the
     returned ``edep`` is replicated, the ray state stays sharded."""
-    trace1 = make_trace_fn(cfg, rays_per_tile, backend)
+    trace1 = make_trace_fn(cfg)
 
     def local_trace(field4, state0):
         edep, state, oflow = trace1(field4, state0)
@@ -97,7 +92,6 @@ def make_sharded_trace_fn(cfg: Config, mesh: Mesh, rays_per_tile: int,
 
 def make_sharded_segmented_trace_fn(cfg: Config, mesh: Mesh,
                                     rays_per_tile: int, dev_segments,
-                                    backend: str | None = None,
                                     track_final_state: bool = False):
     """Multi-device trace with per-device static tile compaction — the
     device-parallel form of ``raytracer.make_segmented_trace_fn``.
@@ -106,7 +100,7 @@ def make_sharded_segmented_trace_fn(cfg: Config, mesh: Mesh,
     same segment structure (same shapes), but its own tile ids — those ride
     in as *sharded arguments* (one (1, T_s) row per device inside
     shard_map), so one traced program serves all devices.  Deposition grids
-    and the overflow counter are psum-reduced over ICI.
+    and the overflow counter are psum-reduced across devices.
 
     Returns ``fn(field4, state0) -> (edep, state, oflow)``; ``state0`` must
     be ordered device-major per ``dev_segments.tiles[0]`` (see
@@ -121,13 +115,9 @@ def make_sharded_segmented_trace_fn(cfg: Config, mesh: Mesh,
     import jax.numpy as _jnp
 
     from ..models import raytracer as _rt
-    from ..ops.pallas_deposit import finalize_edep
 
     rpt = rays_per_tile
-    if backend is None:
-        backend = _rt.resolve_deposit_backend(cfg)
-    (make_chunk_body, shape3, pallas, chunk, last_chunk,
-     n_chunks) = _rt._make_chunk_machinery(cfg, rpt, backend)
+    make_chunk_body, _, _, n_chunks = _rt._make_chunk_machinery(cfg)
     assert sum(len(c) for c in dev_segments.chunk_lengths) == n_chunks
 
     n_seg = len(dev_segments.chunk_lengths)
@@ -151,10 +141,8 @@ def make_sharded_segmented_trace_fn(cfg: Config, mesh: Mesh,
             for si in range(n_seg)]
 
     def local_trace(field4, state0, valid0_l, origins, *gathers):
-        compute_dtype = state0.uray.dtype
-        master_dtype = jax.dtypes.canonicalize_dtype(jnp.dtype(cfg.edep_dtype))
-        master = jnp.zeros(shape3, master_dtype)
-        chunk_body = make_chunk_body(field4, compute_dtype)
+        master = jnp.zeros(cfg.edep_shape, _rt.master_dtype(cfg))
+        chunk_body = make_chunk_body(field4, state0.uray.dtype)
         # mask rays on dup-padded segment-0 tiles (balancing padding)
         state = _dc.replace(state0, alive=state0.alive & valid0_l[0])
         oflow = jnp.int32(0)
@@ -183,8 +171,6 @@ def make_sharded_segmented_trace_fn(cfg: Config, mesh: Mesh,
             steps = jnp.asarray(dev_segments.chunk_lengths[si], jnp.int32)
             (state, master, oflow), _ = jax.lax.scan(
                 chunk_body, (state, master, oflow), steps)
-        if pallas:
-            master = finalize_edep(master, cfg.ny, cfg.nz)
         out = (jax.lax.psum(master, AXIS), state,
                jax.lax.psum(oflow, AXIS))
         if track_final_state:
@@ -228,16 +214,14 @@ def device_major_state(state0: RayState, rays_per_tile: int,
     return select_rays(state0, slots)
 
 
-def run_sharded(ctx: TraceContext, mesh: Mesh | None = None,
-                backend: str | None = None):
+def run_sharded(ctx: TraceContext, mesh: Mesh | None = None):
     """Convenience entry: pad, trace, return (edep np.f64, state)."""
     if mesh is None:
         mesh = make_mesh()
     n_dev = math.prod(mesh.devices.shape)
-    state0 = pad_rays(ctx.state0, n_dev * ctx.layout.rays_per_tile
-                      * ctx.cfg.tiles_per_block)
-    fn = make_sharded_trace_fn(ctx.cfg, mesh, ctx.layout.rays_per_tile, backend)
+    state0 = pad_rays(ctx.state0, n_dev * ctx.layout.rays_per_tile)
+    fn = make_sharded_trace_fn(ctx.cfg, mesh)
     edep, state, oflow = fn(ctx.field4, state0)
     from ..models.raytracer import check_overflow
-    check_overflow(int(jax.device_get(oflow)), ctx.cfg)
+    check_overflow(int(jax.device_get(oflow)))
     return np.asarray(jax.device_get(edep), dtype=np.float64), state

@@ -1,19 +1,18 @@
 """Binary-counter pairwise accumulator — the float64-equivalent f32
-master-grid reducer shared by the composed trace (runner.run_composed) and
-the composed CBET solve (models.cbet_composed).
+master-grid reducer of the composed trace (runner.run_composed).
 
 Chunk deltas are f32 grids; summing hundreds of them naively loses ~3-4
 digits.  The binary counter keeps one partial sum per power-of-two level
-(log-depth addition tree, <= log2(n_chunks) grids resident), which was
-measured 9-digit-stable on the config-4 edep total (BASELINE.md).
+(log-depth addition tree, <= log2(n_chunks) grids resident), so the
+rounding error grows with log2(n_chunks) instead of n_chunks.
 
 The levels dict is the CHECKPOINT REPRESENTATION: save_composed_checkpoint
-/ save_cbet_checkpoint persist it as-is and the loaders rebuild it
+persists it as-is and the loaders rebuild it
 (sorted-ascending).  Because an uninterrupted run's dict carries levels in
 push-created insertion order instead, ``fold`` consumes levels in CANONICAL
 (descending-level) order — largest partial sums first — so the f32 addition
 tree is identical on both paths and resume stays bit-identical even when
-3+ levels survive to the final fold (ADVICE r04).  Reference analog: the
+3+ levels survive to the final fold.  Reference analog: the
 host OpenMP reduction it replaces (main.cu:199-210) sums in one fixed
 order for the same reason.
 """

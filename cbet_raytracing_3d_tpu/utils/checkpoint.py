@@ -110,8 +110,8 @@ def save_composed_checkpoint(path: str, fingerprint: str, chunk_index: int,
 
 def load_composed_checkpoint(path: str, fingerprint: str):
     """Returns ``(chunk_index, state, uray_full, alive_full, acc_levels,
-    oflow)``; validates the run fingerprint (config + segmentation +
-    backend) so a checkpoint can't resume a structurally different run."""
+    oflow)``; validates the run fingerprint (config + segmentation) so a
+    checkpoint can't resume a structurally different run."""
     with np.load(path) as data:
         if int(data["composed_version"]) != COMPOSED_VERSION:
             raise ValueError(
@@ -121,7 +121,7 @@ def load_composed_checkpoint(path: str, fingerprint: str):
         if fp != fingerprint:
             raise ValueError(
                 f"checkpoint fingerprint {fp} does not match this run's "
-                f"{fingerprint} (different config/segmentation/backend)")
+                f"{fingerprint} (different config/segmentation)")
         acc = {int(lvl): jnp.asarray(data[f"acc_{lvl}"])
                for lvl in data["acc_levels"]}
         return (int(data["chunk_index"]), _state_from(data),
@@ -154,56 +154,3 @@ def load_checkpoint(path: str, cfg: Config):
         return (int(data["chunk_index"]), jnp.asarray(data["master"]),
                 state, int(data["oflow"]))
 
-
-CBET_VERSION = 1
-
-
-def save_cbet_checkpoint(path: str, fingerprint: str, iteration: int,
-                         intensity, history: list,
-                         edep_levels: dict | None = None) -> None:
-    """Iteration-boundary checkpoint of the composed CBET solve
-    (``models.cbet_composed.cbet_solve_composed``): the post-update
-    (blended) intensity after ``iteration`` completed fixed-point
-    iterations, plus the convergence history.  Ray state is NOT saved —
-    every iteration re-traces from the same launch state, so the intensity
-    is the entire fixed-point state.  ``edep_levels`` (optional): the
-    pairwise accumulator of the just-finished iteration's edep, saved so a
-    resume that lands on the CONVERGED iteration does not re-trace.
-    Atomic via temp+rename."""
-    import os
-    tmp = path + ".tmp.npz"
-    payload = dict(
-        cbet_version=CBET_VERSION,
-        fingerprint=fingerprint,
-        iteration=int(iteration),
-        intensity=np.asarray(intensity),
-        history=np.asarray(history, np.float64),
-    )
-    if edep_levels is not None:
-        payload["edep_levels"] = np.asarray(sorted(edep_levels), np.int64)
-        for lvl in sorted(edep_levels):
-            payload[f"edep_{lvl}"] = np.asarray(edep_levels[lvl])
-    np.savez_compressed(tmp, **payload)
-    os.replace(tmp, path)
-
-
-def load_cbet_checkpoint(path: str, fingerprint: str):
-    """Returns ``(iteration, intensity, history, edep_levels|None)``;
-    validates the run fingerprint (config + plan + grouping + backend)."""
-    with np.load(path) as data:
-        if int(data["cbet_version"]) != CBET_VERSION:
-            raise ValueError(
-                f"unsupported CBET checkpoint version: "
-                f"{data['cbet_version']}")
-        fp = str(data["fingerprint"])
-        if fp != fingerprint:
-            raise ValueError(
-                f"CBET checkpoint fingerprint {fp} does not match this "
-                f"run's {fingerprint} (different config/plan/grouping/"
-                "backend)")
-        levels = None
-        if "edep_levels" in data:
-            levels = {int(lvl): jnp.asarray(data[f"edep_{lvl}"])
-                      for lvl in data["edep_levels"]}
-        return (int(data["iteration"]), jnp.asarray(data["intensity"]),
-                [float(h) for h in data["history"]], levels)

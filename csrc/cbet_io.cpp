@@ -1,6 +1,6 @@
 // Native IO runtime for cbet_raytracing_3d_tpu.
 //
-// TPU-native equivalents of the reference's C++ host runtime pieces:
+// Native equivalents of the reference's C++ host runtime pieces:
 //   - radial profile text parsing      (main.cu:246-260)
 //   - the -D PRINT nested dump writer  (main.cu:6-22,353-355)
 //   - the 27-node edep box average     (main.cu:334-349)

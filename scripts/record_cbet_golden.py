@@ -1,28 +1,29 @@
-"""Record the CBET-stage regression golden (round 4, companion to
-scripts/record_omega_golden.py).
+"""Record the CBET-stage regression golden on the GPU.
 
-The trace golden (artifacts/omega_golden.npz) anchors the pure-deposition
-path; this records the CONVERGED gain-coupled edep grid from the
-production exact solve (segmented + plan_headroom 0.5 + Pallas
-kernel_cell — the bench configuration) so CBET-stage drift is caught at
-grid granularity, not just the edep_total digit-match that rounds 2-4
-used informally.
+The golden is the converged OMEGA CBET solve (``Config()``) in float64
+(x64 enabled: float64 launch state, ray state, deposits, intensity and gain
+fields and master grid), so the float32 production solve is checked against
+a higher-precision answer, not against itself.  Writes
 
-Writes artifacts/cbet_golden.npz (f32 grid + f64 total + config ids) and
-artifacts/cbet_golden.json (SHA256 of the canonical %.17g dump, 8^3-block
-checksum digest, per-iteration history, rel-L2 vs any previous golden).
-bench.py reports ``cbet_golden_rel_l2`` against it (flag above the 1e-4
-accuracy bar: ``cbet_golden_drift``).  Reference analog: the ``cmp``
-golden test (/root/reference/Makefile:14-17) extended to the CBET stage
-the reference only reserves capacity for (def.cuh:94-114).
+* ``<out>/cbet_golden.npz`` — the converged gain-coupled (nx+2)^3 edep grid
+  as float32 + its float64 total + config identifiers,
+* ``<out>/cbet_golden.json`` — SHA256 of the canonical %.17g dump, 8^3
+  block-sum digest, iteration history, the rel-L2 of the float32
+  production solve against it (chip_smoke.py and bench.py hold that solve
+  to 1e-4), and the rel-L2 of the previous golden against it (a
+  lower-precision control: a float32 solve whose launch state was computed
+  in float32 sits above the bar).
+
+Reference analog: the ``cmp`` golden test (Makefile:14-17) extended to the
+CBET stage the reference only reserves capacity for (def.cuh:94-114).
+
+    python scripts/record_cbet_golden.py [--out artifacts] [--tag TAG]
 """
 
-import dataclasses
-import hashlib
+import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -39,65 +40,48 @@ import jax  # noqa: E402
 from cbet_raytracing_3d_tpu import Config                     # noqa: E402
 from cbet_raytracing_3d_tpu.models import raytracer as rt     # noqa: E402
 from cbet_raytracing_3d_tpu.models.cbet import cbet_solve     # noqa: E402
-from cbet_raytracing_3d_tpu.utils.output import dump_print_format  # noqa: E402
-
-CACHE = os.path.join(REPO, ".cbet_cache")
-NPZ = os.path.join(REPO, "artifacts", "cbet_golden.npz")
-JSN = os.path.join(REPO, "artifacts", "cbet_golden.json")
+from record_omega_golden import digests, rel_l2               # noqa: E402
 
 
 def main() -> int:
-    tag = sys.argv[1] if len(sys.argv) > 1 else "r04"
-    if jax.default_backend() == "cpu":
-        print("refusing: the golden must be recorded on the TPU "
-              "(the production path)", file=sys.stderr)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(REPO, "artifacts"))
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args()
+    if jax.default_backend() != "gpu":
+        print("refusing: record the golden on the GPU", file=sys.stderr)
         return 1
     cfg = Config()
-    # the bench CBET configuration (bench.py cbet_kw): every lever exact
-    cfg = dataclasses.replace(cfg, cbet_segmented=True,
-                              cbet_plan_headroom=0.5,
-                              cbet_gain_mode="kernel_cell")
-    ctx = rt.prepare_device(cfg)
-    t0 = time.perf_counter()
-    res = cbet_solve(cfg, ctx, cache_dir=CACHE, verbose=True)
-    wall = time.perf_counter() - t0
+    res32 = cbet_solve(cfg, rt.prepare_device(cfg))
+    cfg64 = Config(dtype="float64")
+    with jax.enable_x64(True):
+        res = cbet_solve(cfg64, rt.prepare_device(cfg64), verbose=True)
     assert res.converged, res.history
     edep = np.asarray(res.edep, np.float64)
-    print(f"solve+fetch {wall:.1f}s iters {res.iterations} "
-          f"edep_total {edep.sum():.9e}", flush=True)
-
-    prev_rel = None
-    if os.path.exists(NPZ):
-        prev = np.load(NPZ)["edep"].astype(np.float64)
-        prev_rel = float(np.linalg.norm(edep - prev) / np.linalg.norm(prev))
-        print(f"rel-L2 vs previous golden: {prev_rel:.3e}", flush=True)
-
-    dump = dump_print_format(edep)
-    sha = hashlib.sha256(dump.encode()).hexdigest()
-    bs = 8
-    gp = np.pad(edep, [(0, (-s) % bs) for s in edep.shape])
-    blocks = gp.reshape(gp.shape[0] // bs, bs, gp.shape[1] // bs, bs,
-                        gp.shape[2] // bs, bs).sum(axis=(1, 3, 5))
-    blk_sha = hashlib.sha256(blocks.tobytes()).hexdigest()
-
-    np.savez_compressed(NPZ, edep=edep.astype(np.float32),
-                        edep_total=np.float64(edep.sum()),
-                        nx=cfg.nx, ny=cfg.ny, nz=cfg.nz,
-                        rays_per_zone=cfg.rays_per_zone, nt=cfg.nt,
-                        cbet_tol=cfg.cbet_tol, cbet_relax=cfg.cbet_relax)
+    os.makedirs(args.out, exist_ok=True)
+    npz = os.path.join(args.out, "cbet_golden.npz")
+    prev = os.path.join(REPO, "artifacts", "cbet_golden.npz")
     rec = {
-        "tag": tag,
+        "tag": args.tag,
+        "device": jax.devices()[0].device_kind,
+        "dtype": "float64",
         "edep_total": float(edep.sum()),
-        "canonical_dump_sha256": sha,
-        "block8_sums_sha256": blk_sha,
+        **digests(edep),
         "grid_shape": list(edep.shape),
         "stored_dtype": "float32",
         "iterations": res.iterations,
         "history": [round(h, 5) for h in res.history],
-        "rel_l2_vs_previous_golden": prev_rel,
-        "solve_plus_fetch_seconds": round(wall, 1),
+        "float32_solve_rel_l2": rel_l2(res32.edep, edep),
+        "float32_solve_iterations": res32.iterations,
+        "previous_golden_rel_l2": rel_l2(
+            np.load(prev)["edep"], edep) if os.path.exists(prev) else None,
     }
-    with open(JSN, "w") as f:
+    np.savez_compressed(npz, edep=edep.astype(np.float32),
+                        edep_total=np.float64(edep.sum()),
+                        nx=cfg.nx, ny=cfg.ny, nz=cfg.nz,
+                        rays_per_zone=cfg.rays_per_zone, nt=cfg.nt,
+                        cbet_tol=cfg.cbet_tol, cbet_relax=cfg.cbet_relax)
+    with open(os.path.join(args.out, "cbet_golden.json"), "w") as f:
         json.dump(rec, f, indent=2)
     print(json.dumps(rec))
     return 0

@@ -1,111 +1,101 @@
-"""Record the OMEGA-scale regression golden (VERDICT r3 ask #5).
+"""Record the OMEGA trace regression golden on the GPU.
 
-``edep_total`` agreement across rounds is informal — a sum can hide
-compensating errors.  This records the FULL production-path OMEGA grid
-(the segmented single-chip trace bench.py measures) as a committed
-artifact:
+The golden is the full OMEGA scene traced in float64 (``dtype="float64"``
+with x64 enabled), so the float32 production trace (``runner.run(Config())``)
+is checked against a higher-precision answer, not against itself.  Writes
 
-* ``artifacts/omega_golden.npz`` — the (nx+2, ny+2, nz+2) edep grid as
-  float32 (compressed ~4 MB; the comparison bar is 1e-4, f32 rounding is
-  ~6e-8) + the float64 total + config identifiers,
-* ``artifacts/omega_golden.json`` — SHA256 of the canonical %.17g dump,
-  per-block (8^3 supercell) checksum digest, edep_total, and — when a
-  previous golden exists — the rel-L2 against it (the round-over-round
-  drift record).
+* ``<out>/omega_golden.npz`` — the (nx+2)^3 edep grid as float32 + its
+  float64 total + config identifiers,
+* ``<out>/omega_golden.json`` — SHA256 of the canonical %.17g dump, 8^3
+  block-sum digest, and the rel-L2 of the float32 production trace and of
+  the previous golden against it.
 
-bench.py compares every run's grid against the committed golden and
-reports ``golden_rel_l2`` (flagging ``golden_drift`` above the 1e-4
-accuracy bar) — the portable analog of the reference's bitwise
-``cmp edep_100 truth_100`` golden test (/root/reference/Makefile:14-17;
-the truth_100 blob is absent from the snapshot and bitwise cmp is not
+chip_smoke.py and bench.py hold every float32 production grid to rel-L2
+1e-4 against it — the portable analog of the reference's bitwise
+``cmp edep_100 truth_100`` golden test (Makefile:14-17; bitwise cmp is not
 portable across architectures).
+
+    python scripts/record_omega_golden.py [--out artifacts] [--tag TAG]
 """
 
+import argparse
 import hashlib
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from cbet_raytracing_3d_tpu.utils.compile_cache import (  # noqa: E402
-    enable_persistent_cache)
 
-enable_persistent_cache()
+def rel_l2(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
-import jax  # noqa: E402
 
-from cbet_raytracing_3d_tpu import Config                     # noqa: E402
-from cbet_raytracing_3d_tpu.models import raytracer as rt     # noqa: E402
-from cbet_raytracing_3d_tpu.models import tileplan as tp      # noqa: E402
-from cbet_raytracing_3d_tpu.parallel import sharding as sh    # noqa: E402
-from cbet_raytracing_3d_tpu.utils.output import dump_print_format  # noqa: E402
+def digests(edep: np.ndarray) -> dict:
+    """SHA256 of the canonical dump and of the 8^3 supercell block sums
+    (the block digest localizes any future drift)."""
+    from cbet_raytracing_3d_tpu.utils.output import dump_print_format
 
-CACHE = os.path.join(REPO, ".cbet_cache")
-NPZ = os.path.join(REPO, "artifacts", "omega_golden.npz")
-JSN = os.path.join(REPO, "artifacts", "omega_golden.json")
+    bs = 8
+    gp = np.pad(edep, [(0, (-s) % bs) for s in edep.shape])
+    blocks = gp.reshape(gp.shape[0] // bs, bs, gp.shape[1] // bs, bs,
+                        gp.shape[2] // bs, bs).sum(axis=(1, 3, 5))
+    return {
+        "canonical_dump_sha256": hashlib.sha256(
+            dump_print_format(edep).encode()).hexdigest(),
+        "block8_sums_sha256": hashlib.sha256(blocks.tobytes()).hexdigest(),
+    }
 
 
 def main() -> int:
-    tag = sys.argv[1] if len(sys.argv) > 1 else "r04"
-    cfg = Config()
-    ctx = rt.prepare_device(cfg) if jax.default_backend() != "cpu" else None
-    if ctx is None:
-        print("refusing: the golden must be recorded on the TPU "
-              "(the production path)", file=sys.stderr)
+    from cbet_raytracing_3d_tpu.utils.compile_cache import (
+        enable_persistent_cache)
+
+    enable_persistent_cache()
+
+    import jax
+
+    from cbet_raytracing_3d_tpu import Config
+    from cbet_raytracing_3d_tpu.models import raytracer as rt
+    from cbet_raytracing_3d_tpu.runner import run
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(REPO, "artifacts"))
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args()
+    if jax.default_backend() != "gpu":
+        print("refusing: record the golden on the GPU", file=sys.stderr)
         return 1
-    state0 = sh.pad_rays(ctx.state0, ctx.layout.rays_per_tile
-                         * cfg.tiles_per_block)
-    plan = tp.get_or_measure_plan(cfg, ctx, state0, CACHE)
-    segments = tp.build_segments(plan, cfg, cfg.nt)
-    fn = jax.jit(rt.make_segmented_trace_fn(cfg, ctx.layout.rays_per_tile,
-                                            segments))
-    t0 = time.perf_counter()
-    edep, _, oflow = fn(ctx.field4, state0)
-    assert int(jax.device_get(oflow)) == 0
-    edep = np.asarray(jax.device_get(edep), np.float64)
-    t_trace = time.perf_counter() - t0
-    print(f"trace+fetch {t_trace:.1f}s edep_total {edep.sum():.9e}",
-          flush=True)
-
-    prev_rel = None
-    if os.path.exists(NPZ):
-        prev = np.load(NPZ)["edep"].astype(np.float64)
-        prev_rel = float(np.linalg.norm(edep - prev) / np.linalg.norm(prev))
-        print(f"rel-L2 vs previous golden: {prev_rel:.3e}", flush=True)
-
-    dump = dump_print_format(edep)
-    sha = hashlib.sha256(dump.encode()).hexdigest()
-    # 8^3-supercell blockwise sums (f64) — localizes any future drift
-    g = edep
-    bs = 8
-    px = (-g.shape[0]) % bs
-    py = (-g.shape[1]) % bs
-    pz = (-g.shape[2]) % bs
-    gp = np.pad(g, ((0, px), (0, py), (0, pz)))
-    blocks = gp.reshape(gp.shape[0] // bs, bs, gp.shape[1] // bs, bs,
-                        gp.shape[2] // bs, bs).sum(axis=(1, 3, 5))
-    blk_sha = hashlib.sha256(blocks.tobytes()).hexdigest()
-
-    np.savez_compressed(NPZ, edep=edep.astype(np.float32),
+    cfg = Config()
+    edep32 = run(cfg, verbose=False).edep
+    with jax.enable_x64(True):
+        edep, _ = rt.trace(rt.prepare_device(cfg.replace(dtype="float64")))
+    edep = np.asarray(edep, np.float64)
+    os.makedirs(args.out, exist_ok=True)
+    prev = os.path.join(REPO, "artifacts", "omega_golden.npz")
+    rec = {
+        "tag": args.tag,
+        "device": jax.devices()[0].device_kind,
+        "dtype": "float64",
+        "edep_total": float(edep.sum()),
+        **digests(edep),
+        "grid_shape": list(edep.shape),
+        "stored_dtype": "float32",
+        "float32_trace_rel_l2": rel_l2(edep32, edep),
+        "previous_golden_rel_l2": rel_l2(
+            np.load(prev)["edep"], edep) if os.path.exists(prev) else None,
+    }
+    np.savez_compressed(os.path.join(args.out, "omega_golden.npz"),
+                        edep=edep.astype(np.float32),
                         edep_total=np.float64(edep.sum()),
                         nx=cfg.nx, ny=cfg.ny, nz=cfg.nz,
                         rays_per_zone=cfg.rays_per_zone, nt=cfg.nt)
-    rec = {
-        "tag": tag,
-        "edep_total": float(edep.sum()),
-        "canonical_dump_sha256": sha,
-        "block8_sums_sha256": blk_sha,
-        "grid_shape": list(edep.shape),
-        "stored_dtype": "float32",
-        "rel_l2_vs_previous_golden": prev_rel,
-        "trace_plus_fetch_seconds": round(t_trace, 1),
-    }
-    with open(JSN, "w") as f:
+    with open(os.path.join(args.out, "omega_golden.json"), "w") as f:
         json.dump(rec, f, indent=2)
     print(json.dumps(rec))
     return 0

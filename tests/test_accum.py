@@ -1,8 +1,7 @@
-"""PairwiseAccumulator (utils/accum.py): the binary-counter f32 reducer
-shared by runner.run_composed and models.cbet_composed.  The fold must be
-bit-identical whether the levels dict arrives in push-created insertion
-order (uninterrupted run) or rebuilt sorted-ascending (checkpoint load) —
-the ADVICE-r04 canonical-order guarantee, now pinned at the shared helper."""
+"""PairwiseAccumulator (utils/accum.py): the binary-counter f32 reducer of
+runner.run_composed.  The fold must be bit-identical whether the levels
+dict arrives in push-created insertion order (uninterrupted run) or rebuilt
+sorted-ascending (checkpoint load) — the canonical-order guarantee."""
 
 import jax
 import jax.numpy as jnp

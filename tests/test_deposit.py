@@ -1,16 +1,12 @@
-"""Deposition tests: the XLA scatter backend vs a literal transcription of
-the reference corner scheme (launch_ray_XZ.cu:319-348), the Pallas tile-box
-kernel (interpret mode) vs the scatter backend, energy conservation, and the
-overflow counter."""
+"""Deposition tests: the XLA scatter deposit vs a literal transcription of
+the reference corner scheme (launch_ray_XZ.cu:319-348), dead rays, boundary
+exit rows, a high-resolution grid, and energy conservation."""
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from cbet_raytracing_3d_tpu.config import Config
 from cbet_raytracing_3d_tpu.models.raytracer import _scatter_deposit
-from cbet_raytracing_3d_tpu.ops.pallas_deposit import (
-    ZLANES, edep_zpad_shape, finalize_edep, make_tile_deposit)
 
 CFG = Config(nx=24, ny=20, nz=22)
 GRID = (CFG.nx, CFG.ny, CFG.nz)
@@ -67,76 +63,27 @@ def test_scatter_energy_conservation(rng):
     np.testing.assert_allclose(got.sum(), inc.sum(), rtol=1e-12)
 
 
-def _run_pallas(cell, frac, inc, rays_per_tile):
-    dep = make_tile_deposit(*GRID, rays_per_tile=rays_per_tile, box=16,
-                            tiles_per_block=1, interpret=True)
-    zshape = edep_zpad_shape(*GRID)
-    edep, oflow = dep(jnp.zeros(zshape, jnp.float32),
-                      *(jnp.asarray(c, jnp.int32) for c in cell),
-                      *(jnp.asarray(f, jnp.float32) for f in frac),
-                      jnp.asarray(inc, jnp.float32))
-    edep = finalize_edep(edep, GRID[1], GRID[2])
-    return np.asarray(edep, np.float64), int(oflow)
-
-
-def test_pallas_matches_scatter_coherent_tiles(rng):
-    """Tiles whose rays sit in a small box: the kernel must agree with the
-    scatter backend and report zero overflow."""
-    n_tiles, rpt = 5, 64
-    cells, fracs, incs = [], [], []
-    for t in range(n_tiles):
-        ox = rng.integers(0, GRID[0] - 12, size=3)
-        cell, frac, inc = _random_rays(
-            rng, rpt, cell_lo=ox, cell_hi=ox + 10)
-        cells.append(cell); fracs.append(frac); incs.append(inc)
-    cell = [np.concatenate([c[a] for c in cells]) for a in range(3)]
-    frac = [np.concatenate([f[a] for f in fracs]) for a in range(3)]
-    inc = np.concatenate(incs)
-
-    got, oflow = _run_pallas(cell, frac, inc, rpt)
-    assert oflow == 0
-    want = _run_scatter(cell, frac, inc)
-    # kernel weights are bf16 (hi/lo value split): ~2^-9 per-deposit error,
-    # unaveraged here because each node receives only a few deposits
-    np.testing.assert_allclose(got, want, rtol=5e-3, atol=3e-3 * want.max())
-
-
-def test_pallas_dead_rays_ignored(rng):
-    """inc==0 rays must not affect the deposit or the box origin, even with
-    garbage positions."""
-    rpt = 64
-    ox = np.array([5, 5, 5])
-    cell, frac, inc = _random_rays(rng, rpt, cell_lo=ox, cell_hi=ox + 8)
-    # poison half the rays: far-away cells but zero increment
-    poison = np.arange(rpt) % 2 == 0
+def test_scatter_dead_rays_ignored(rng):
+    """inc==0 rays must not affect the deposit, even with garbage
+    (far-away) cells."""
+    n = 64
+    cell, frac, inc = _random_rays(rng, n, cell_lo=(5, 5, 5),
+                                   cell_hi=(13, 13, 13))
+    poison = np.arange(n) % 2 == 0
     for a in range(3):
         cell[a] = np.where(poison, GRID[a] - 1, cell[a]).astype(np.int32)
     inc = np.where(poison, 0.0, inc)
-
-    got, oflow = _run_pallas(cell, frac, inc, rpt)
-    assert oflow == 0
+    got = _run_scatter(cell, frac, inc)
     keep = ~poison
-    want = _run_scatter([c[keep] for c in cell], [f[keep] for f in frac], inc[keep])
-    np.testing.assert_allclose(got, want, rtol=5e-3, atol=3e-3 * max(want.max(), 1))
+    want = _run_scatter([c[keep] for c in cell], [f[keep] for f in frac],
+                        inc[keep])
+    np.testing.assert_array_equal(got, want)
 
 
-def test_pallas_overflow_detection(rng):
-    """Live rays outside the tile box must be counted, not silently dropped."""
-    rpt = 64
-    cell, frac, inc = _random_rays(rng, rpt, cell_lo=(0, 0, 0), cell_hi=(2, 2, 2))
-    # one live ray far away in x -> outside the 16-box
-    cell[0][7] = GRID[0] - 2
-    got, oflow = _run_pallas(cell, frac, inc, rpt)
-    assert oflow >= 1
-
-
-def test_pallas_all_dead_tile(rng):
-    rpt = 64
-    cell, frac, inc = _random_rays(rng, rpt)
+def test_scatter_all_dead_tile(rng):
+    cell, frac, inc = _random_rays(rng, 64)
     inc[:] = 0.0
-    got, oflow = _run_pallas(cell, frac, inc, rpt)
-    assert oflow == 0
-    assert got.sum() == 0.0
+    assert _run_scatter(cell, frac, inc).sum() == 0.0
 
 
 def _boundary_rays(rng, n):
@@ -155,110 +102,42 @@ def _boundary_rays(rng, n):
     return cell, frac, inc
 
 
-def _run_pallas_exact(cell, frac, inc, rays_per_tile, exact_boundary):
-    dep = make_tile_deposit(*GRID, rays_per_tile=rays_per_tile, box=16,
-                            tiles_per_block=1, interpret=True, precise=True,
-                            exact_boundary=exact_boundary)
-    zshape = edep_zpad_shape(*GRID)
-    edep, oflow = dep(jnp.zeros(zshape, jnp.float32),
-                      *(jnp.asarray(c, jnp.int32) for c in cell),
-                      *(jnp.asarray(f, jnp.float32) for f in frac),
-                      jnp.asarray(inc, jnp.float32))
-    edep = finalize_edep(edep, GRID[1], GRID[2])
-    return np.asarray(edep, np.float64), int(oflow)
-
-
-def test_pallas_exact_boundary_matches_reference(rng):
-    """exact_boundary=True reproduces the reference's literal extrapolated
-    weights on boundary exit steps (one NEGATIVE ghost-layer weight per
-    out-of-range axis) to f32 precision."""
+def test_scatter_boundary_exit_matches_reference(rng):
+    """Boundary exit steps: the scatter deposit reproduces the reference's
+    literal extrapolated weights (one NEGATIVE ghost-layer weight per
+    out-of-range axis) exactly — conserved and correctly placed."""
     cell, frac, inc = _boundary_rays(rng, 64)
-    got, oflow = _run_pallas_exact(cell, frac, inc, 64, exact_boundary=True)
-    assert oflow == 0
+    got = _run_scatter(cell, frac, inc)
     want = _reference_deposit(cell, frac, inc)
     assert want.min() < 0  # the scene really has extrapolated rows
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * want.max())
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got.sum(), inc.sum(), rtol=1e-12)
 
 
-def test_pallas_default_boundary_conserved_but_misplaced(rng):
-    """Pins the documented default-mode behavior (PARITY.md): on boundary
-    exit rows the single-hat build conserves each row's increment but
-    places it on the wrong neighbor — quantified at ~1.6e-5 rel-L2 on a
-    boundary-heavy production scene (artifacts/boundary_deposit_r05.json),
-    under the 1e-4 accuracy bar.  This synthetic set is boundary-dense on
-    purpose, so the deviation here is large and the test would catch the
-    default mode silently becoming exact (flip the docs if so)."""
-    cell, frac, inc = _boundary_rays(rng, 64)
-    got, oflow = _run_pallas_exact(cell, frac, inc, 64, exact_boundary=False)
-    assert oflow == 0
-    want = _reference_deposit(cell, frac, inc)
-    np.testing.assert_allclose(got.sum(), want.sum(), rtol=1e-6)  # conserved
-    rel_l2 = np.linalg.norm(got - want) / np.linalg.norm(want)
-    assert rel_l2 > 1e-3, rel_l2  # misplaced on this boundary-dense set
-
-
-def test_exact_boundary_config_plumbing():
-    """deposit_boundary_exact reaches the kernel through the trace-fn
-    builder: the full integrator with the exact kernel matches the scatter
-    backend (which implements the literal scheme) through a scene with
-    face exits."""
-    import jax
-
-    from cbet_raytracing_3d_tpu.models import raytracer as rt
-    from cbet_raytracing_3d_tpu.parallel.sharding import pad_rays
-
-    cfg = Config(nbeams=1, rays_per_zone=1, nx=24, ny=24, nz=24,
-                 dtype="float32", tiles_per_block=2, courant_mult=1.0,
-                 deposit_boundary_exact=True)
-    ctx = rt.prepare(cfg)
-    rpt = ctx.layout.rays_per_tile
-    s0 = pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
-                  rpt * cfg.tiles_per_block)
-    edep_p, _, oflow = jax.jit(
-        rt.make_trace_fn(cfg, rpt, backend="pallas_interpret"))(ctx.field4, s0)
-    assert int(oflow) == 0
-    edep_s, _, _ = jax.jit(
-        rt.make_trace_fn(cfg, rpt, backend="scatter"))(ctx.field4, s0)
-    ep = np.asarray(edep_p, np.float64)
-    es = np.asarray(edep_s, np.float64)
-    rel_l2 = np.linalg.norm(ep - es) / np.linalg.norm(es)
-    # bf16 kernel weights (~2^-9 per deposit) barely average at this tiny
-    # scene's few-deposits-per-node density — measured 1.17e-3
-    assert rel_l2 < 2.5e-3, rel_l2
-    # total conservation also rides on the bf16 weight casts here (exact
-    # mode's extrapolated weights exceed 1 on exit rows, so the absolute
-    # rounding is a shade larger) — measured 1.8e-4
-    np.testing.assert_allclose(ep.sum(), es.sum(), rtol=5e-4)
-
-
-def test_hbm_kernel_high_res_matches_scatter():
-    """The HBM-grid kernel (nz+2 > 128 lanes, grid too large for VMEM —
-    BASELINE config 4's regime) must match the scatter backend through the
-    full integrator.  Reference capability: grid scaling via def.cuh:33-53."""
-    import jax
-
-    from cbet_raytracing_3d_tpu.config import Config
-    from cbet_raytracing_3d_tpu.models import raytracer as rt
-
-    # anisotropic grid (fine z): a tile's launch footprint alone spans
-    # ~17 z-cells here, so the z box is the driving dimension
-    cfg = Config(nbeams=1, rays_per_zone=1, nx=32, ny=32, nz=130,
-                 dtype="float32", tiles_per_block=2, courant_mult=1.0,
-                 deposit_box_x=16, deposit_box_y=16, deposit_box_z=56)
-    assert cfg.nz + 2 > 128
-    ctx = rt.prepare(cfg)
-    rpt = ctx.layout.rays_per_tile
-    from cbet_raytracing_3d_tpu.parallel.sharding import pad_rays
-    s0 = pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
-                  rpt * cfg.tiles_per_block)
-    fn_h = jax.jit(rt.make_trace_fn(cfg, rpt, backend="pallas_hbm_interpret"))
-    edep_h, _, oflow = fn_h(ctx.field4, s0)
-    assert int(oflow) == 0
-    fn_s = jax.jit(rt.make_trace_fn(cfg, rpt, backend="scatter"))
-    edep_s, _, _ = fn_s(ctx.field4, s0)
-    es = np.asarray(edep_s, np.float64)
-    eh = np.asarray(edep_h, np.float64)
-    assert eh.shape == es.shape == (34, 34, 132)
-    rel_l2 = np.linalg.norm(eh - es) / np.linalg.norm(es)
-    assert rel_l2 < 1e-3, rel_l2
-    np.testing.assert_allclose(eh.sum(), es.sum(), rtol=1e-4)
+def test_scatter_high_res_grid_matches_reference(rng):
+    """BASELINE config 4's 200^3 grid (202^3 with ghosts): flat indices
+    beyond 2^23 and deposits spread over the whole grid still match the
+    literal corner formula."""
+    cfg = Config(nx=200, ny=200, nz=200)
+    shape = cfg.edep_shape
+    n = 300
+    cell = [rng.integers(0, 200, size=n).astype(np.int32) for _ in range(3)]
+    frac = [rng.uniform(-0.4999, 0.4999, size=n) for _ in range(3)]
+    inc = rng.uniform(0.5, 2.0, size=n)
+    got = np.asarray(_scatter_deposit(
+        cfg, jnp.zeros(shape), tuple(jnp.asarray(c) for c in cell),
+        tuple(jnp.asarray(f) for f in frac), jnp.asarray(inc)))
+    want = np.zeros(shape)
+    for i in range(n):
+        c = [int(cell[a][i]) + 1 for a in range(3)]
+        p = [frac[a][i] - 0.5 for a in range(3)]
+        d = [1 - abs(pp) for pp in p]
+        sg = [-1 if pp < 0 else 1 for pp in p]
+        for ox in (0, 1):
+            for oy in (0, 1):
+                for oz in (0, 1):
+                    w = ((d[0] if ox else 1 - d[0]) * (d[1] if oy else 1 - d[1])
+                         * (d[2] if oz else 1 - d[2]))
+                    want[c[0] + ox * sg[0], c[1] + oy * sg[1],
+                         c[2] + oz * sg[2]] += w * inc[i]
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)

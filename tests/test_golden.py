@@ -36,7 +36,7 @@ def test_config1_matches_committed_golden(profiles):
     slots = ctx.layout.slot_of[0, rays]
     state0 = rt.select_rays(ctx.state0, slots)
     edep, _, oflow = jax.jit(
-        rt.make_trace_fn(cfg, ctx.layout.rays_per_tile))(ctx.field4, state0)
+        rt.make_trace_fn(cfg))(ctx.field4, state0)
     assert int(oflow) == 0
     got = np.asarray(edep, np.float64)
 

@@ -1,4 +1,4 @@
-"""Multi-host (DCN-analog) smoke test: two OS processes, one CPU device
+"""Multi-host smoke test: two OS processes, one CPU device
 each, gloo TCP collectives — the process-level story the reference cannot
 express (its multi-device path is in-process cudaMemcpy + a host-CPU sum,
 multi_gpu.cpp:3-59, main.cu:199-210; SURVEY.md §5.8).

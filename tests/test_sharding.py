@@ -31,12 +31,11 @@ def test_sharded_matches_single_device(small_ctx):
     ctx = small_ctx
     state0 = _subset(ctx, 64)
 
-    rpt = ctx.layout.rays_per_tile
-    single = jax.jit(rt.make_trace_fn(ctx.cfg, rpt))
+    single = jax.jit(rt.make_trace_fn(ctx.cfg))
     edep1, _, _ = single(ctx.field4, state0)
 
     mesh = sh.make_mesh()
-    fn = sh.make_sharded_trace_fn(ctx.cfg, mesh, rpt)
+    fn = sh.make_sharded_trace_fn(ctx.cfg, mesh)
     edep8, state8, _ = fn(ctx.field4, sh.pad_rays(state0, 8))
 
     np.testing.assert_allclose(np.asarray(edep8), np.asarray(edep1),
@@ -50,12 +49,11 @@ def test_pad_rays_are_inert(small_ctx):
     assert padded.uray.shape[0] == 64
     assert not bool(np.asarray(padded.alive[61:]).any())
 
-    rpt = ctx.layout.rays_per_tile
     mesh = sh.make_mesh()
-    fn = sh.make_sharded_trace_fn(ctx.cfg, mesh, rpt)
+    fn = sh.make_sharded_trace_fn(ctx.cfg, mesh)
     edep, _, _ = fn(ctx.field4, padded)
 
-    single = jax.jit(rt.make_trace_fn(ctx.cfg, rpt))
+    single = jax.jit(rt.make_trace_fn(ctx.cfg))
     edep1, _, _ = single(ctx.field4, state0)
     np.testing.assert_allclose(np.asarray(edep), np.asarray(edep1),
                                rtol=1e-12, atol=0)
@@ -67,39 +65,11 @@ def test_uneven_beam_count_devices(small_ctx):
     (the reference hard-codes nGPUs=2 with beams%nGPUs==0, def.cuh:116)."""
     ctx = small_ctx
     state0 = _subset(ctx, 40)
-    rpt = ctx.layout.rays_per_tile
     for ndev in (1, 2, 4, 8):
         mesh = sh.make_mesh(jax.devices()[:ndev])
-        fn = sh.make_sharded_trace_fn(ctx.cfg, mesh, rpt)
+        fn = sh.make_sharded_trace_fn(ctx.cfg, mesh)
         edep, _, _ = fn(ctx.field4, sh.pad_rays(state0, ndev))
         assert np.isfinite(np.asarray(edep)).all()
-
-
-@pytest.mark.slow
-def test_sharded_pallas_matches_single_device(profiles):
-    """The Pallas deposit backend through shard_map: shards cut at tile
-    boundaries (sharding.py contract), each device runs the kernel on whole
-    tiles, grids psum-reduce.  Must equal the single-device kernel result."""
-    cfg = Config(nbeams=2, rays_per_zone=1, nx=40, ny=40, nz=40,
-                 dtype="float32", tiles_per_block=1)
-    ctx = rt.prepare(cfg, profiles)
-    rpt = ctx.layout.rays_per_tile
-    # two whole live tiles per device
-    live_tiles = np.unique(ctx.live_slots // rpt)
-    tiles = live_tiles[:4]
-    idx = (tiles[:, None] * rpt + np.arange(rpt)[None, :]).reshape(-1)
-    state0 = rt.select_rays(ctx.state0, idx)
-
-    single = jax.jit(rt.make_trace_fn(cfg, rpt, backend="pallas_interpret"))
-    edep1, _, of1 = single(ctx.field4, state0)
-    assert int(of1) == 0
-
-    mesh = sh.make_mesh(jax.devices()[:2])
-    fn = sh.make_sharded_trace_fn(cfg, mesh, rpt, backend="pallas_interpret")
-    edep2, _, of2 = fn(ctx.field4, state0)
-    assert int(of2) == 0
-    np.testing.assert_allclose(np.asarray(edep2), np.asarray(edep1),
-                               rtol=1e-6, atol=1e-6 * float(np.asarray(edep1).max()))
 
 
 @pytest.mark.slow
@@ -111,19 +81,19 @@ def test_sharded_segmented_matches_single_device(profiles):
     from cbet_raytracing_3d_tpu.models import tileplan as tp
 
     cfg = Config(nbeams=4, rays_per_zone=1, nx=40, ny=40, nz=40,
-                 dtype="float64", tiles_per_block=1, chunk_steps=10)
+                 dtype="float64", chunk_steps=10)
     ctx = rt.prepare(cfg, profiles)
     rpt = ctx.layout.rays_per_tile
     state0 = sh.pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
-                         rpt * cfg.tiles_per_block)
+                         rpt)
 
-    single = jax.jit(rt.make_trace_fn(cfg, rpt))
+    single = jax.jit(rt.make_trace_fn(cfg))
     edep1, _, of1 = single(ctx.field4, state0)
     assert int(of1) == 0
 
     plan = tp.measure_plan(cfg, ctx, state0)
     for ndev in (1, 2, 4):
-        dseg = tp.build_device_segments(plan, cfg, cfg.nt, ndev)
+        dseg = tp.build_device_segments(plan, cfg.nt, ndev)
         assert len(dseg.chunk_lengths) > 1, "scene produced no compaction"
         mesh = sh.make_mesh(jax.devices()[:ndev])
         fn = sh.make_sharded_segmented_trace_fn(cfg, mesh, rpt, dseg)
@@ -140,41 +110,14 @@ def test_device_segments_balanced(profiles):
     from cbet_raytracing_3d_tpu.models import tileplan as tp
 
     cfg = Config(nbeams=4, rays_per_zone=1, nx=40, ny=40, nz=40,
-                 dtype="float64", tiles_per_block=1, chunk_steps=10)
+                 dtype="float64", chunk_steps=10)
     ctx = rt.prepare(cfg, profiles)
     rpt = ctx.layout.rays_per_tile
     state0 = sh.pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
-                         rpt * cfg.tiles_per_block)
+                         rpt)
     plan = tp.measure_plan(cfg, ctx, state0)
-    dseg = tp.build_device_segments(plan, cfg, cfg.nt, 4)
+    dseg = tp.build_device_segments(plan, cfg.nt, 4)
     for valid in dseg.valid:
         counts = valid.sum(axis=1)
         assert counts.max() - counts.min() <= 1, counts
 
-
-@pytest.mark.slow
-def test_sharded_segmented_pallas_backend(profiles):
-    """Sharded segmented trace through the Pallas (interpret) deposit
-    kernel: per-device compaction must keep shards tile-aligned for the
-    kernel contract, and match the plain kernel trace."""
-    from cbet_raytracing_3d_tpu.models import tileplan as tp
-
-    cfg = Config(nbeams=4, rays_per_zone=1, nx=40, ny=40, nz=40,
-                 dtype="float32", tiles_per_block=1, chunk_steps=10)
-    ctx = rt.prepare(cfg, profiles)
-    rpt = ctx.layout.rays_per_tile
-    state0 = sh.pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
-                         rpt * cfg.tiles_per_block)
-    single = jax.jit(rt.make_trace_fn(cfg, rpt, backend="pallas_interpret"))
-    edep1, _, of1 = single(ctx.field4, state0)
-    assert int(of1) == 0
-    plan = tp.measure_plan(cfg, ctx, state0)
-    dseg = tp.build_device_segments(plan, cfg, cfg.nt, 2)
-    mesh = sh.make_mesh(jax.devices()[:2])
-    fn = sh.make_sharded_segmented_trace_fn(cfg, mesh, rpt, dseg,
-                                            backend="pallas_interpret")
-    edep, _, oflow = fn(ctx.field4, sh.device_major_state(state0, rpt, dseg))
-    assert int(oflow) == 0
-    e1, e2 = np.asarray(edep1, np.float64), np.asarray(edep, np.float64)
-    rel = np.linalg.norm(e2 - e1) / np.linalg.norm(e1)
-    assert rel < 1e-6, rel

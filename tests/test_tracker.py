@@ -6,6 +6,8 @@ tested here is oracle.trace_ray's recorded path (the literal transcription
 of the ray loop) and the def.cuh:96 ncrossings capacity bound.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,8 @@ from cbet_raytracing_3d_tpu.models.tracker import (RayTrajectories,
 # > beam_max_x=450 um)
 BEAMS = [0, 17, 3]
 RAYS = [9800, 4321, 0]
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -130,13 +134,13 @@ def test_cli_track(tmp_path):
     import subprocess
     import sys
 
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     out_npz = str(tmp_path / "traj.npz")
     out = subprocess.run(
         [sys.executable, "-m", "cbet_raytracing_3d_tpu.cli", "track",
          "--nbeams", "2", "--rays-per-zone", "2", "--nx", "32", "--ny", "32",
          "--nz", "32", "--pairs", "0:242,1:243", "--out", out_npz],
-        capture_output=True, text=True, timeout=600, env=env, cwd="/root/repo")
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     summary = json.loads(out.stdout)
     assert summary["rays"] == 2
@@ -151,11 +155,11 @@ def test_cli_track_rejects_bad_pairs():
     import subprocess
     import sys
 
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     out = subprocess.run(
         [sys.executable, "-m", "cbet_raytracing_3d_tpu.cli", "track",
          "--pairs", "0-3"],
-        capture_output=True, text=True, timeout=300, env=env, cwd="/root/repo")
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert out.returncode == 2
     assert "beam:ray" in out.stderr
     # out-of-range ids take the same clean error path (exit 2, one-line
@@ -163,7 +167,7 @@ def test_cli_track_rejects_bad_pairs():
     out = subprocess.run(
         [sys.executable, "-m", "cbet_raytracing_3d_tpu.cli", "track",
          "--pairs", "99:0"],
-        capture_output=True, text=True, timeout=300, env=env, cwd="/root/repo")
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert out.returncode == 2
     assert "out of range" in out.stderr
     assert "Traceback" not in out.stderr
